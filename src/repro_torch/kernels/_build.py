@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
+
+The sources in ``repro_torch/csrc`` are compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface the first time a
+kernel runs, and loaded with ``ctypes``. The library lands in
+``build/repro_torch/`` at the root of the checkout, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. A failed build raises; nothing falls back to the plain versions.
+
+A C interface keeps PyTorch's headers out of the build, which then takes
+seconds rather than the minutes ``torch.utils.cpp_extension.load`` needs
+(and that route also needs ``ninja``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCES = (_PKG / "csrc" / "iter_fisher.cu",)
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "ferret_compensate_packed": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "ferret_stats_packed": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P], _I),
+    "ferret_stats_scratch_len": ([_I], _I),
+    "ferret_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        home and os.path.join(home, "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH, /usr/local/cuda/bin): "
+        "the port's CUDA kernels are built from source on first use"
+    )
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libferret_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the .so."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build beside the target and rename into place, so a concurrent or
+    # interrupted build never leaves a half-written library under its name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on the first call in a process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = library().ferret_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,44 @@
+"""Tree-level Iter-Fisher entry points: pack → one kernel → unpack.
+
+The counterpart of ``repro.kernels.ops.iter_fisher_compensate_tree`` and
+``iter_fisher_stats_tree``, always on the flat-packed path (the JAX
+package's TPU default). The kernel wrappers in ``packing`` pick the CUDA
+kernel or the plain version from the device the tensors are on.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.kernels import packing
+from repro_torch.tree import tree_leaves
+
+
+def iter_fisher_compensate_tree(grad: Any, deltas: Any, lam: torch.Tensor) -> Any:
+    """Whole-tree compensation; deltas per leaf ``(τ, *leaf.shape)``, oldest
+    first. One kernel launch regardless of leaf count."""
+    leaves_d = tree_leaves(deltas)
+    tau = leaves_d[0].shape[0] if leaves_d else 0
+    if tau == 0:
+        return grad
+    spec = packing.pack_spec(grad)
+    gflat = packing.pack(spec, grad)
+    dflat = packing.pack(spec, deltas, lead=1)
+    return packing.unpack(spec, packing.compensate_packed(gflat, dflat, lam))
+
+
+def iter_fisher_stats_tree(
+    grad: Any, delta: Any, v_r: Any, v_a: Any, alpha: float
+) -> Tuple[Any, Any, torch.Tensor, torch.Tensor]:
+    """Whole-tree λ-statistics: (v_r', v_a', Σ s1, Σ s2), one launch; s1 and
+    s2 stay 0-d tensors on the device."""
+    spec = packing.pack_spec(grad)
+    nvr, nva, s1, s2 = packing.stats_packed(
+        packing.pack(spec, grad), packing.pack(spec, delta),
+        packing.pack(spec, v_r), packing.pack(spec, v_a), alpha,
+    )
+    vr_dtypes = tuple(leaf.dtype for leaf in tree_leaves(v_r))
+    va_dtypes = tuple(leaf.dtype for leaf in tree_leaves(v_a))
+    return packing.unpack(spec, nvr, vr_dtypes), packing.unpack(spec, nva, va_dtypes), s1, s2

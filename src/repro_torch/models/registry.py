@@ -1,0 +1,47 @@
+"""Architecture registry of the port.
+
+The port keeps its own copies of the configs it runs, so that it never
+imports the JAX package. Only h2o-danube-1.8b is ported so far.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.config import ModelConfig
+
+# h2o-danube-1.8b [dense] — llama+mistral mix, SWA. [arXiv:2401.16818; hf]
+# 24L d_model=2560 32H (GQA kv=8) d_ff=6912 vocab=32000, sliding window 4096.
+H2O_DANUBE_1_8B = ModelConfig(
+    name="h2o-danube-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2560,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=6912,
+    vocab_size=32000,
+    window=4096,
+)
+
+H2O_DANUBE_1_8B_SMOKE = ModelConfig(
+    name="h2o-danube-1.8b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    window=8,
+)
+
+_CONFIGS = {"h2o-danube-1.8b": (H2O_DANUBE_1_8B, H2O_DANUBE_1_8B_SMOKE)}
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _CONFIGS:
+        raise ValueError(
+            f"architecture {arch!r} is not ported to repro_torch yet; "
+            f"ported: {', '.join(sorted(_CONFIGS))}"
+        )
+    full, small = _CONFIGS[arch]
+    return small if smoke else full
