@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where a round of the PyTorch/CUDA port's main path spends its time.
 
-    python3 scripts/profile_torch_path.py
+    python3 scripts/profile_torch_path.py [--arch h2o-danube-1.8b|mamba2-780m]
 
-Runs ``FerretTrainer.run_stream`` at the configuration of ``chip_smoke.py``
-(h2o-danube-1.8b at full width, 4 of 24 layers, batch 2, seq 1024,
-Iter-Fisher with λ tuning) three times on the same trainer: once to warm
-up, once timed on the host clock, once under ``torch.profiler``. Prints
+Runs ``FerretTrainer.run_stream`` at one of the path configurations of
+``chip_smoke.py`` (full width, batch 2, seq 1024, Iter-Fisher with λ
+tuning; h2o-danube-1.8b with 4 of 24 layers, the default, or mamba2-780m
+with 16 of 48) three times on the same trainer: once to warm up, once
+timed on the host clock, once under ``torch.profiler``. Prints
 the card's name and power limit, the steady-state ms per round, and one
 JSON line with the device time per kernel group and the device's busy and
 idle share of the profiled run, after the profiler's table of the 40
@@ -15,6 +16,7 @@ costliest operations. Needs a CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -24,8 +26,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# depth each architecture is cut to (as in chip_smoke.py)
+LAYERS = {"h2o-danube-1.8b": 4, "mamba2-780m": 16}
+
 GROUPS = (  # first match wins
     ("iter_fisher_kernels", ("compensate_kernel", "stats_kernel", "sum_partials_kernel")),
+    ("ssd_kernels", ("chunk_outer_kernel", "state_scan_kernel", "fwd_out_kernel",
+                     "state_rscan_kernel", "bwd_row_kernel", "bwd_col_kernel",
+                     "bwd_dt_kernel", "sum_mid_kernel")),
     ("matmul", ("gemm", "nvjet", "sm90_", "cutlass", "xmma", "cublas", "splitk")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
@@ -42,6 +50,9 @@ def group_of(name: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--arch", choices=sorted(LAYERS), default="h2o-danube-1.8b")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -59,7 +70,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), num_layers=4)
+    cfg = dataclasses.replace(get_config(args.arch), num_layers=LAYERS[args.arch])
+    print(f"{cfg.name}: {cfg.num_layers} layers at full width, batch 2, seq 1024")
     rounds = 32
     fc = FerretConfig(budget_bytes=float("inf"), lr=1e-4, max_workers=3, max_stages=4,
                       compensation=CompensationConfig(method="iter_fisher", eta_lambda=1e-4))
@@ -96,6 +108,8 @@ def main() -> int:
     print(f"ms_per_round_steady={ms_round:.2f} (host clock, no profiler, {rounds} rounds "
           "after a warm-up run)")
     print(json.dumps({
+        "arch": cfg.name,
+        "num_layers": cfg.num_layers,
         "rounds": rounds,
         "ms_per_round_steady": ms_round,
         "profiled_wall_ms": wall_ms,

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc → shared library → ctypes).
 
 The sources in ``repro_torch/csrc`` are compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface the first time a
-kernel runs, and loaded with ``ctypes``. The library lands in
+``sm_90a`` (one ``nvcc`` per source, all started together, then one link)
+into a shared library with a plain C interface the first time a kernel
+runs, and loaded with ``ctypes``. The library lands in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. A failed build raises; nothing falls back to the plain versions.
@@ -24,21 +25,27 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "iter_fisher.cu",)
+SOURCES = (_PKG / "csrc" / "iter_fisher.cu", _PKG / "csrc" / "ssd_scan.cu")
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "ferret_compensate_packed": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "ferret_stats_packed": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P], _I),
     "ferret_stats_scratch_len": ([_I], _I),
     "ferret_error_string": ([_I], ctypes.c_char_p),
+    "ferret_ssd_workspace_len": ([_I] * 7, _L),
+    # bf16 flag; x dt A B C s0 y final sb work; b l h p n Q; stream
+    "ferret_ssd_fwd": ([_I] + [_P] * 10 + [_I] * 6 + [_P], _I),
+    # bf16 flag; x dt A B C sb dy dfinal dx ddt dA dB dC ds0 work; b l h p n Q; stream
+    "ferret_ssd_bwd": ([_I] + [_P] * 15 + [_I] * 6 + [_P], _I),
 }
 
 
@@ -70,21 +77,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build beside the target and rename into place, so a concurrent or
-    # interrupted build never leaves a half-written library under its name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in SOURCES]
+        # one compile per source, all running at once, then one link
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for src, obj in zip(SOURCES, objs))
+        ]
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
             )
+        # rename into place, so a concurrent or interrupted build never
+        # leaves a half-written library under its name
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return out
 
 

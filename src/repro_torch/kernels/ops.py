@@ -1,19 +1,46 @@
-"""Tree-level Iter-Fisher entry points: pack → one kernel → unpack.
+"""Entry points over the kernels: the SSD scan, and the tree-level
+Iter-Fisher pack → one kernel → unpack.
 
-The counterpart of ``repro.kernels.ops.iter_fisher_compensate_tree`` and
-``iter_fisher_stats_tree``, always on the flat-packed path (the JAX
-package's TPU default). The kernel wrappers in ``packing`` pick the CUDA
-kernel or the plain version from the device the tensors are on.
+The counterpart of ``repro.kernels.ops`` (``ssd_scan``,
+``iter_fisher_compensate_tree``, ``iter_fisher_stats_tree``), always on the
+kernel path the JAX package takes on its TPU (flat-packed Iter-Fisher).
+The kernel wrappers pick the CUDA kernel or the plain version from the
+device the tensors are on.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import packing
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.tree import tree_leaves
+
+
+def ssd_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    chunk: int,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable SSD scan over any length: a ragged tail is padded to
+    a chunk multiple with dt = 0 (decay e^0 = 1, increment 0: the state is
+    unchanged), outside the autograd Function, so the gradient drops the pad."""
+    slen = x.shape[1]
+    pad = (-slen) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    y, state = _ssd.SSDScan.apply(x, dt, A, B, C, initial_state, chunk)
+    return (y[:, :slen] if pad else y), state
 
 
 def iter_fisher_compensate_tree(grad: Any, deltas: Any, lam: torch.Tensor) -> Any:

@@ -1,7 +1,8 @@
 """Architecture registry of the port.
 
 The port keeps its own copies of the configs it runs, so that it never
-imports the JAX package. Only h2o-danube-1.8b is ported so far.
+imports the JAX package. Ported so far: h2o-danube-1.8b (dense) and
+mamba2-780m (ssm).
 """
 
 from __future__ import annotations
@@ -34,7 +35,44 @@ H2O_DANUBE_1_8B_SMOKE = ModelConfig(
     window=8,
 )
 
-_CONFIGS = {"h2o-danube-1.8b": (H2O_DANUBE_1_8B, H2O_DANUBE_1_8B_SMOKE)}
+# mamba2-780m [ssm] — SSD (state-space duality). [arXiv:2405.21060]
+# 48L d_model=1536 (attention-free) d_ff=0 vocab=50280, ssm_state=128.
+MAMBA2_780M = ModelConfig(
+    name="mamba2-780m",
+    family="ssm",
+    num_layers=48,
+    d_model=1536,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_expand=2,
+    ssm_headdim=64,
+    ssm_conv=4,
+    ssm_chunk=256,
+)
+
+MAMBA2_780M_SMOKE = ModelConfig(
+    name="mamba2-780m-smoke",
+    family="ssm",
+    num_layers=2,
+    d_model=64,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=256,
+    ssm_state=16,
+    ssm_expand=2,
+    ssm_headdim=16,
+    ssm_conv=4,
+    ssm_chunk=8,
+)
+
+_CONFIGS = {
+    "h2o-danube-1.8b": (H2O_DANUBE_1_8B, H2O_DANUBE_1_8B_SMOKE),
+    "mamba2-780m": (MAMBA2_780M, MAMBA2_780M_SMOKE),
+}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

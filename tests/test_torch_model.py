@@ -51,11 +51,12 @@ def model():
 def test_registry_config_matches_reference():
     from repro.models.registry import get_config as jget
 
-    for smoke in (False, True):
-        assert dataclasses.asdict(get_config("h2o-danube-1.8b", smoke=smoke)) == \
-            dataclasses.asdict(jget("h2o-danube-1.8b", smoke=smoke))
+    for arch in ("h2o-danube-1.8b", "mamba2-780m"):
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+                dataclasses.asdict(jget(arch, smoke=smoke))
     with pytest.raises(ValueError, match="not ported"):
-        get_config("mamba2-780m")
+        get_config("hymba-1.5b")
 
 
 def test_init_params_layout_matches_reference(model):
@@ -195,4 +196,4 @@ def test_long_sequences_and_other_families_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         T.forward(cfg, tp, {"tokens": tokens})
     with pytest.raises(NotImplementedError, match="not ported"):
-        T.param_shapes(dataclasses.replace(cfg, family="ssm"))
+        T.param_shapes(dataclasses.replace(cfg, family="hybrid"))
